@@ -5,7 +5,7 @@ reference code itself is imported read-only from /root/reference).
 Unlike the minimal monkeypatch in test_coverage_parity.py (which bypasses
 ``load_chromosome_reads`` entirely), the ``pysam.AlignmentFile`` here is
 FUNCTIONAL: it decodes real BAM bytes through our own from-scratch reader
-(degnorm_tpu.io.bam) and exposes the exact attribute surface the reference
+(degnorm_jax.io.bam) and exposes the exact attribute surface the reference
 uses (reference ``loaders.py:64-70``, ``reads.py:140-262``):
 
     AlignmentFile(path, mode='rb', index_filename=...)
@@ -64,7 +64,7 @@ class StubGAS:
 
 
 # --------------------------------------------------------------------------
-# pysam: functional AlignmentFile over degnorm_tpu.io.bam.
+# pysam: functional AlignmentFile over degnorm_jax.io.bam.
 # --------------------------------------------------------------------------
 class _StubRead:
     __slots__ = ("query_name", "pos", "cigarstring", "rnext", "_nh")
@@ -105,7 +105,7 @@ class StubAlignmentFile:
         key = (os.path.abspath(filename), os.path.getmtime(filename))
         if key not in _BAM_CACHE:
             _BAM_CACHE.clear()   # keep at most one decoded file resident
-            from degnorm_tpu.io import bam as bamio
+            from degnorm_jax.io import bam as bamio
             _BAM_CACHE[key] = bamio.read_bam(filename)
         self._hdr, self._cols = _BAM_CACHE[key]
         self.header = _StubHeader(self._hdr)

@@ -4,9 +4,9 @@ import os
 import numpy as np
 import pytest
 
-from degnorm_tpu.io import bam as bamio
-from degnorm_tpu.io.bai import read_bai, reg2bin, reg2bins
-from degnorm_tpu.io.simulate import make_genes, simulate_sample
+from degnorm_jax.io import bam as bamio
+from degnorm_jax.io.bai import read_bai, reg2bin, reg2bins
+from degnorm_jax.io.simulate import make_genes, simulate_sample
 
 
 def test_reg2bin_spec_cases():
@@ -74,7 +74,7 @@ def test_index_bam_matches_write_time_index(indexed_bam, tmp_path):
     """Post-hoc indexing of an existing BAM (the native samtools-index
     equivalent) must yield identical region fetches to the index written
     at BAM-creation time."""
-    from degnorm_tpu.io.bai import index_bam
+    from degnorm_jax.io.bai import index_bam
 
     bam, bai = indexed_bam
     bai2 = str(tmp_path / "rebuilt.bai")
@@ -99,7 +99,7 @@ def test_streaming_sample_processor_matches_whole_file(indexed_bam, tmp_path):
     """BAI-driven per-chromosome streaming ETL (pipeline/sample.py) must be
     byte-identical to the whole-file decode path."""
     import pandas as pd
-    from degnorm_tpu.pipeline.sample import BamSampleProcessor
+    from degnorm_jax.pipeline.sample import BamSampleProcessor
 
     bam, bai = indexed_bam
     gene_rows, exon_rows = [], []
@@ -136,7 +136,7 @@ def test_streaming_sample_processor_matches_whole_file(indexed_bam, tmp_path):
 
 def test_native_region_parse_matches_python(indexed_bam):
     """dn_parse_records on a BAI region blob == the pure-Python parser."""
-    from degnorm_tpu.io.bai import fetch_region_bytes, read_bai
+    from degnorm_jax.io.bai import fetch_region_bytes, read_bai
 
     bam, bai = indexed_bam
     idx = read_bai(bai)
@@ -185,7 +185,7 @@ def test_read_head_qnames_multichunk(multiblock_bam):
 def test_streaming_index_bam_multiblock(multiblock_bam, tmp_path):
     """The streaming (bounded-memory) indexer on a many-block file yields
     fetches identical to a full scan."""
-    from degnorm_tpu.io.bai import index_bam
+    from degnorm_jax.io.bai import index_bam
     bai = index_bam(multiblock_bam, str(tmp_path / "x.bai"))
     _, full = bamio.read_bam(multiblock_bam, tid=0, native=False)
     _, reg = bamio.read_bam_region(multiblock_bam, bai, tid=0)

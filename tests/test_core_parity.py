@@ -2,17 +2,17 @@
 
 Chain: reference (ARPACK) == oracle (ARPACK) ~= JAX core (power iteration /
 eigh on the p x p Gram matrix). Tests here run the core in float64 on CPU;
-float32 TPU tolerances are covered in test_engine.py.
+float32 device tolerances are covered in test_engine.py.
 """
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from degnorm_tpu.config import EngineConfig, NMFConfig
-from degnorm_tpu.core.linalg import masked_rank_one, outer_product
-from degnorm_tpu.core.nmf import nmf_masked, ratio_svd_rowsums
-from degnorm_tpu.core.baseline import baseline_select_bucket, materialize_estimate
-from degnorm_tpu.oracle import nmfoa as oracle
+from degnorm_jax.config import EngineConfig, NMFConfig
+from degnorm_jax.core.linalg import masked_rank_one, outer_product
+from degnorm_jax.core.nmf import nmf_masked, ratio_svd_rowsums
+from degnorm_jax.core.baseline import baseline_select_bucket, materialize_estimate
+from degnorm_jax.oracle import nmfoa as oracle
 from tests.conftest import random_coverage
 
 
@@ -131,7 +131,7 @@ def test_rank_one_uv_finish_matches_masked_rank_one(method):
     the scale tail, and finish_rank_one replays that tail in the same op
     order (core/linalg.py; the Lagrangian loops rely on the est = u ⊗ v
     identity this pins down)."""
-    from degnorm_tpu.core.linalg import finish_rank_one, masked_rank_one_uv
+    from degnorm_jax.core.linalg import finish_rank_one, masked_rank_one_uv
 
     rng = np.random.default_rng(11)
     mats = [random_coverage(rng, 4, L, degraded=True) for L in (90, 200, 256)]

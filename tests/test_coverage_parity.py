@@ -12,9 +12,9 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from degnorm_tpu.io import bam as bamio
-from degnorm_tpu.io.coverage import chromosome_coverage_read_counts
-from degnorm_tpu.io.overlap import overlap_structure
+from degnorm_jax.io import bam as bamio
+from degnorm_jax.io.coverage import chromosome_coverage_read_counts
+from degnorm_jax.io.overlap import overlap_structure
 
 CHROM = "chr1"
 CHROM_LEN = 50_000
@@ -276,7 +276,7 @@ def test_warm_start_from_reference_written_run(tmp_path, annotation):
         ref_run, CHROM, f"coverage_matrices_{CHROM}.pkl"))
 
     # our CLI, warm-started from the reference-written directory
-    from degnorm_tpu.cli import main
+    from degnorm_jax.cli import main
     out_base = tmp_path / "ours"
     os.makedirs(out_base)
     rc = main(["-w", str(ref_run), "-o", str(out_base),
@@ -297,9 +297,9 @@ def test_reference_warm_starts_from_our_run(tmp_path, annotation):
     gene_df, exon_df = annotation
     del gene_df
     # produce one of OUR runs on simulated BAMs
-    from degnorm_tpu.io.simulate import make_genes, write_gtf, \
+    from degnorm_jax.io.simulate import make_genes, write_gtf, \
         write_sample_bam
-    from degnorm_tpu.cli import main
+    from degnorm_jax.cli import main
     rng = np.random.default_rng(21)
     genes = make_genes(rng, n_genes=6, overlap_fraction=0.2)
     gtf = str(tmp_path / "sim.gtf")

@@ -13,10 +13,10 @@ import struct
 import numpy as np
 import pytest
 
-from degnorm_tpu.io import bam as bamio
-from degnorm_tpu.io import cram as cramio
-from degnorm_tpu.io import rans
-from degnorm_tpu.io.simulate import (make_genes, simulate_sample,
+from degnorm_jax.io import bam as bamio
+from degnorm_jax.io import cram as cramio
+from degnorm_jax.io import rans
+from degnorm_jax.io.simulate import (make_genes, simulate_sample,
                                      write_gtf, write_sample_bam,
                                      write_sample_cram)
 
@@ -65,7 +65,7 @@ def test_rans_native_matches_python():
     Python reference on valid streams AND agrees (same bytes or both
     erroring) on corrupted ones.  Skips when no toolchain built the
     native library."""
-    from degnorm_tpu.io.native.build import get_fn
+    from degnorm_jax.io.native.build import get_fn
     if get_fn("dn_rans_uncompress") is None:
         pytest.skip("native library unavailable")
     rng = np.random.default_rng(13)
@@ -401,7 +401,7 @@ def test_fast_path_engages_on_writer_output(tmp_path, monkeypatch):
     """The vectorized decoder must actually handle the writer's encoding
     profile (guards against a silent permanent fallback to the 15x
     slower per-record path)."""
-    from degnorm_tpu.io import cram_fast
+    from degnorm_jax.io import cram_fast
     if cram_fast._scan_itf8(b"\x01") is None:
         pytest.skip("native library unavailable")
     hits = {"ok": 0}
@@ -538,9 +538,9 @@ def test_sample_processor_cram_streaming_matches(tmp_path):
     """BamSampleProcessor(stream=True) on a .cram (per-chromosome
     container streaming, no index) must reproduce the whole-file-decode
     outputs exactly."""
-    from degnorm_tpu.io.gtf import process_annotation
-    from degnorm_tpu.io.overlap import overlap_structure
-    from degnorm_tpu.pipeline.sample import BamSampleProcessor
+    from degnorm_jax.io.gtf import process_annotation
+    from degnorm_jax.io.overlap import overlap_structure
+    from degnorm_jax.pipeline.sample import BamSampleProcessor
 
     rng = np.random.default_rng(31)
     genes = make_genes(rng, n_genes=5, overlap_fraction=0.3)
@@ -575,9 +575,9 @@ def test_sample_processor_cram_streaming_matches(tmp_path):
 def test_sample_processor_cram_matches_bam(tmp_path):
     """BamSampleProcessor on a .cram must produce byte-identical coverage
     and read counts to the .bam of the same simulated reads."""
-    from degnorm_tpu.io.gtf import process_annotation
-    from degnorm_tpu.io.overlap import overlap_structure
-    from degnorm_tpu.pipeline.sample import BamSampleProcessor
+    from degnorm_jax.io.gtf import process_annotation
+    from degnorm_jax.io.overlap import overlap_structure
+    from degnorm_jax.pipeline.sample import BamSampleProcessor
 
     rng = np.random.default_rng(5)
     genes = make_genes(rng, n_genes=6, overlap_fraction=0.3)
@@ -612,7 +612,7 @@ def test_sample_processor_cram_matches_bam(tmp_path):
 def test_pipeline_cli_accepts_cram(tmp_path):
     """Full CLI run on .cram inputs (reference test_zzz_pipeline.py shape,
     with the format the reference cannot read)."""
-    from degnorm_tpu.cli import main
+    from degnorm_jax.cli import main
 
     rng = np.random.default_rng(42)
     genes = make_genes(rng, n_genes=6, overlap_fraction=0.2)
@@ -739,7 +739,7 @@ def test_cram_pair_hash_matches_native_bam(tmp_path):
     mate_code) from the raw name bytes so the native coverage kernel's
     paired path engages for CRAM input; values must equal the native BAM
     reader's on identical records."""
-    from degnorm_tpu.io.native.build import load_library
+    from degnorm_jax.io.native.build import load_library
     if load_library() is None:
         pytest.skip("native library unavailable")
     bp = str(tmp_path / "p.bam")
@@ -766,9 +766,9 @@ def test_cram_paired_coverage_native_matches_numpy(tmp_path):
     """Paired CRAM input routes through the C++ coverage kernel (enabled
     by the decoder-filled pair_hash column) and matches the numpy path."""
     import pandas as pd
-    from degnorm_tpu.io.coverage import chromosome_coverage_read_counts
-    from degnorm_tpu.io.coverage_native import chromosome_coverage_native
-    from degnorm_tpu.io.native.build import load_library
+    from degnorm_jax.io.coverage import chromosome_coverage_read_counts
+    from degnorm_jax.io.coverage_native import chromosome_coverage_native
+    from degnorm_jax.io.native.build import load_library
     if load_library() is None:
         pytest.skip("native library unavailable")
     rng = np.random.default_rng(11)

@@ -27,7 +27,7 @@ import zlib
 import numpy as np
 import pytest
 
-from degnorm_tpu.io import cram as C
+from degnorm_jax.io import cram as C
 
 
 # ---------------------------------------------------------------------------
@@ -378,7 +378,7 @@ def test_forged_variants_decode(variant, fast):
 def test_fast_decoder_falls_back_not_wrong():
     """The vectorized decoder must NOT claim the core-bitstream profile:
     decode_slice_fast returns None (fallback) rather than mis-decoding."""
-    from degnorm_tpu.io import cram_fast
+    from degnorm_jax.io import cram_fast
     calls = {"n": 0, "none": 0}
     orig = cram_fast.decode_slice_fast
 

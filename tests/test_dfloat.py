@@ -10,8 +10,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from degnorm_tpu.core import dfloat as dfm
-from degnorm_tpu.core import degnorm as outer
+from degnorm_jax.core import dfloat as dfm
+from degnorm_jax.core import degnorm as outer
 
 
 def _mk(rng, shape, scale=1.0):

@@ -1,7 +1,7 @@
 """int8-delta coverage upload encoding: losslessness and engine parity."""
 import numpy as np
 
-from degnorm_tpu.data.encode import delta_decode_device, delta_encode
+from degnorm_jax.data.encode import delta_decode_device, delta_encode
 from tests.conftest import random_coverage
 
 
@@ -43,7 +43,7 @@ def test_int16_input_and_pad_skip_roundtrip():
 
 
 def test_integral_int16able():
-    from degnorm_tpu.data.buckets import integral_int16able
+    from degnorm_jax.data.buckets import integral_int16able
     rng = np.random.default_rng(3)
     mats = [np.round(random_coverage(rng, 3, 200)).astype(np.float32)
             for _ in range(10)]
@@ -76,7 +76,7 @@ def _random_int16_bucket(rng, G, p, W, n_real=None, jumpy_frac=0.001):
 
 
 def test_nibble_roundtrip_lossless():
-    from degnorm_tpu.data.encode import nib_decode_device, nibble_encode
+    from degnorm_jax.data.encode import nib_decode_device, nibble_encode
     rng = np.random.default_rng(11)
     for W in (9, 16, 257):                    # odd + even delta counts
         F = _random_int16_bucket(rng, 5, 3, W, n_real=4)
@@ -92,8 +92,8 @@ def test_nibble_roundtrip_lossless():
 
 
 def test_nibble_native_matches_numpy():
-    from degnorm_tpu.data.encode import nibble_encode, nibble_encode_native
-    from degnorm_tpu.io.native.build import load_library
+    from degnorm_jax.data.encode import nibble_encode, nibble_encode_native
+    from degnorm_jax.io.native.build import load_library
     if load_library() is None:
         import pytest
         pytest.skip("native library unavailable")
@@ -111,7 +111,7 @@ def test_nibble_native_matches_numpy():
 
 
 def test_encode_coverage_dispatch():
-    from degnorm_tpu.data.encode import (DeltaEncoded, NibEncoded,
+    from degnorm_jax.data.encode import (DeltaEncoded, NibEncoded,
                                          decode_coverage_device,
                                          encode_coverage)
     rng = np.random.default_rng(13)
@@ -134,7 +134,7 @@ def test_encode_coverage_dispatch():
 def test_native_pack_matches_numpy():
     """pack_buckets' native int16 cast-pack must equal the threaded numpy
     slice-assignment fill byte-for-byte."""
-    import degnorm_tpu.data.buckets as bk
+    import degnorm_jax.data.buckets as bk
     rng = np.random.default_rng(14)
     mats = [np.round(random_coverage(rng, 3, L)).astype(np.float32)
             for L in (70, 200, 130, 512, 64)]
@@ -156,9 +156,9 @@ def test_native_pack_matches_numpy():
 
 def test_engine_delta_path_matches_direct():
     from collections import OrderedDict
-    from degnorm_tpu.config import EngineConfig, NMFConfig
-    from degnorm_tpu.engine import DegNormEngine
-    import degnorm_tpu.engine as eng_mod
+    from degnorm_jax.config import EngineConfig, NMFConfig
+    from degnorm_jax.engine import DegNormEngine
+    import degnorm_jax.engine as eng_mod
 
     rng = np.random.default_rng(9)
     cov = OrderedDict(
@@ -170,7 +170,7 @@ def test_engine_delta_path_matches_direct():
     r1 = DegNormEngine(cfg, EngineConfig()).run(cov, X.copy())
 
     # force the direct (non-delta) upload path
-    import degnorm_tpu.data.encode as enc_mod
+    import degnorm_jax.data.encode as enc_mod
     orig = enc_mod.encode_coverage
     enc_mod.encode_coverage = lambda F, n_real=None: None
     try:
@@ -184,7 +184,7 @@ def test_engine_delta_path_matches_direct():
 def test_bucket_byte_cap_respects_quantization():
     """A byte-capped bucket must not quantize back up past the cap (the
     engine's HBM guard sizes buckets by this cap)."""
-    from degnorm_tpu.data.buckets import pack_buckets
+    from degnorm_jax.data.buckets import pack_buckets
     rng = np.random.default_rng(15)
     mats = [np.round(random_coverage(rng, 2, 100)).astype(np.float32)
             for _ in range(500)]
@@ -200,8 +200,8 @@ def test_bucket_byte_cap_respects_quantization():
 
 def test_engine_rejects_zero_iterations():
     from collections import OrderedDict
-    from degnorm_tpu.config import NMFConfig
-    from degnorm_tpu.engine import DegNormEngine
+    from degnorm_jax.config import NMFConfig
+    from degnorm_jax.engine import DegNormEngine
     import pytest
     cov = OrderedDict(g0=np.ones((2, 64)))
     with pytest.raises(ValueError, match="degnorm_iter"):

@@ -3,9 +3,9 @@ import numpy as np
 import pytest
 from collections import OrderedDict
 
-from degnorm_tpu.config import EngineConfig, NMFConfig
-from degnorm_tpu.engine import DegNormEngine
-from degnorm_tpu.oracle import nmfoa as oracle
+from degnorm_jax.config import EngineConfig, NMFConfig
+from degnorm_jax.engine import DegNormEngine
+from degnorm_jax.oracle import nmfoa as oracle
 from tests.conftest import random_coverage
 
 
@@ -43,7 +43,7 @@ def test_engine_matches_oracle_f64(method):
 
 def test_engine_f32_tolerance():
     """The production float32 path stays within loose tolerance of the
-    float64 oracle — the gate for TPU numerics."""
+    float64 oracle — the gate for device numerics."""
     cov, X = make_dataset(seed=5)
     cfg = NMFConfig(nmf_iter=8, degnorm_iter=3)
     eng = EngineConfig(rank1_method="power", dtype="float32",
@@ -80,35 +80,44 @@ def test_engine_multi_chunk_buckets():
         np.testing.assert_allclose(a, b, rtol=1e-10)
 
 
-def test_engine_vmem_soft_retry():
-    """A scoped-VMEM Pallas compile failure first retries with halved gene
-    blocks (EngineConfig.vmem_frac=0.5, kernels unchanged), and only then
-    falls back to the XLA path — the VMEM block model is probed per
-    compile environment and that environment can drift between sessions."""
+def test_run_raises_kernel_error_without_retry(monkeypatch):
+    """A kernel that fails fails the fit: run() calls _run() once, does not
+    retry and does not switch the device path."""
     cov, X = make_dataset(seed=9, n=6)
     cfg = NMFConfig(nmf_iter=3, degnorm_iter=1)
-    engine = DegNormEngine(cfg, EngineConfig(bucket_widths=(1024,)))
-
-    real_run = DegNormEngine._run
-    seen = []
+    eng_cfg = EngineConfig(bucket_widths=(1024,), pallas_interpret=True)
+    engine = DegNormEngine(cfg, eng_cfg)
+    calls = []
 
     def failing_run(self, *a, **k):
-        seen.append(self.eng_cfg.vmem_frac)
-        if len(seen) == 1:
-            raise RuntimeError(
-                "Ran out of memory in memory space vmem while allocating")
-        return real_run(self, *a, **k)
+        calls.append(self.eng_cfg)
+        raise RuntimeError("Triton compilation failed: out of resources")
 
-    DegNormEngine._run = failing_run
-    try:
-        res = engine.run(cov, X)
-    finally:
-        DegNormEngine._run = real_run
-    assert seen == [1.0, 0.5]
-    assert engine.eng_cfg.vmem_frac == 0.5
-    assert engine.eng_cfg.use_pallas  # Pallas survived the soft retry
-    gold = oracle.degnorm_fit(list(cov.values()), X, cfg)
-    np.testing.assert_allclose(res.rho, gold.rho, rtol=0, atol=5e-3)
+    monkeypatch.setattr(DegNormEngine, "_run", failing_run)
+    with pytest.raises(RuntimeError, match="Triton compilation failed"):
+        engine.run(cov, X)
+    assert calls == [eng_cfg]
+    assert engine.eng_cfg is eng_cfg
+
+
+@pytest.mark.parametrize("env", [None, "custom"])
+def test_default_cache_dir(env, monkeypatch, tmp_path):
+    """JAX_COMPILATION_CACHE_DIR wins when set; otherwise the cache lives
+    at <checkout>/.jax_cache, a fixed path listed in .gitignore."""
+    import os
+    from degnorm_jax import engine as engine_mod
+    if env is None:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        root = os.path.dirname(os.path.dirname(os.path.abspath(
+            engine_mod.__file__)))
+        assert engine_mod.default_cache_dir() == os.path.join(root,
+                                                              ".jax_cache")
+        with open(os.path.join(root, ".gitignore")) as f:
+            assert ".jax_cache/" in f.read().split()
+    else:
+        target = str(tmp_path / env)
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", target)
+        assert engine_mod.default_cache_dir() == target
 
 
 def test_refit_reuses_device_buckets():
@@ -136,33 +145,3 @@ def test_refit_reuses_device_buckets():
     # a fresh engine (no reuse) agrees too — the refit didn't corrupt
     control = DegNormEngine(cfg, eng_cfg).run(cov, X)
     np.testing.assert_allclose(refit.rho, control.rho, rtol=1e-6, atol=1e-7)
-
-
-def test_transient_compile_retry_keeps_config():
-    """A transient compile-service failure (HTTP 500 from the tunneled
-    helper) retries the SAME configuration once before the halved-blocks
-    escalation (engine.run retry ladder)."""
-    cov, X = make_dataset(seed=32, n=8, p=3)
-    cfg = NMFConfig(nmf_iter=4, degnorm_iter=1)
-    engine = DegNormEngine(cfg, EngineConfig(
-        rank1_method="power", dtype="float32",
-        bucket_widths=(256, 512, 1024)))
-    real_run = DegNormEngine._run
-    seen = []
-
-    def failing_run(self, *a, **k):
-        seen.append(self.eng_cfg.vmem_frac)
-        if len(seen) == 1:
-            raise RuntimeError(
-                "INTERNAL: http://127.0.0.1:1/remote_compile: HTTP 500: "
-                "tpu_compile_helper subprocess exit code 1")
-        return real_run(self, *a, **k)
-
-    DegNormEngine._run = failing_run
-    try:
-        engine.run(cov, X)
-    finally:
-        DegNormEngine._run = real_run
-    # same vmem_frac on the retry — no escalation for a transient error
-    assert seen == [1.0, 1.0]
-    assert engine.eng_cfg.vmem_frac == 1.0 and engine.eng_cfg.use_pallas

@@ -5,9 +5,9 @@ import numpy as np
 import pandas as pd
 from hypothesis import given, settings, strategies as st
 
-from degnorm_tpu.io import bam as bamio
-from degnorm_tpu.io.coverage import chromosome_coverage_read_counts
-from degnorm_tpu.io.overlap import overlap_structure
+from degnorm_jax.io import bam as bamio
+from degnorm_jax.io.coverage import chromosome_coverage_read_counts
+from degnorm_jax.io.overlap import overlap_structure
 from tests.test_coverage_parity import run_reference
 
 CHROM = "chr1"

@@ -8,10 +8,10 @@ deterministic cases in tests/test_encode.py.
 import numpy as np
 import pytest
 
-from degnorm_tpu.data.encode import (OVER_CAP, DeltaEncoded, NibEncoded,
+from degnorm_jax.data.encode import (OVER_CAP, DeltaEncoded, NibEncoded,
                                      decode_coverage_device, encode_coverage,
                                      nibble_encode, nibble_encode_native)
-from degnorm_tpu.io.native.build import get_fn
+from degnorm_jax.io.native.build import get_fn
 
 _NATIVE = get_fn("dn_nib_encode") is not None
 

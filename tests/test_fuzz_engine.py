@@ -13,9 +13,9 @@ from collections import OrderedDict
 import numpy as np
 import pytest
 
-from degnorm_tpu.config import EngineConfig, NMFConfig
-from degnorm_tpu.engine import DegNormEngine
-from degnorm_tpu.oracle import nmfoa as oracle
+from degnorm_jax.config import EngineConfig, NMFConfig
+from degnorm_jax.engine import DegNormEngine
+from degnorm_jax.oracle import nmfoa as oracle
 from tests.conftest import random_coverage
 
 

@@ -1,17 +1,17 @@
-"""Random-shape fuzz of the fused Pallas path vs the XLA twin.
+"""Random-shape fuzz: the XLA trim loop calling the interpreted GPU
+kernel vs the plain XLA path.
 
 Complements the fixed-shape cases in tests/test_pallas.py: random
-(G, p, W, nmf_iter) combinations with random nmf_tol / trim_fast settings
-must keep the interpret-mode kernels in lockstep with the XLA
-while_loop's decisions (the surface whose call-signature break shipped in
-round 2's snapshot).  A 40-trial soak of this exact property ran clean at
-promotion time; CI runs a smaller slice.
+(G, p, W, nmf_iter) combinations with random nmf_tol settings must keep
+the kernel route in lockstep with the XLA while_loop's decisions.  Widths
+that are not powers of two, and nmf_tol > 0, fall outside the kernel's
+gate and must then take the XLA loop unchanged.
 """
 import numpy as np
 import pytest
 
-from degnorm_tpu.config import EngineConfig, NMFConfig
-from degnorm_tpu.core.baseline import baseline_select_bucket
+from degnorm_jax.config import EngineConfig, NMFConfig
+from degnorm_jax.core.baseline import baseline_select_bucket
 from tests.conftest import random_coverage
 from tests.test_core_parity import make_bucket
 
@@ -33,7 +33,7 @@ def test_fuzz_pallas_trim_matches_xla(trial):
     G = int(r.integers(3, 12))
     nmf_iter = int(r.integers(4, 16))
     tol = float(r.choice([0.0, 0.0, 1e-4, 1e-3]))
-    fast = bool(r.integers(0, 2))
+    r.integers(0, 2)       # keeps each trial's data stream unchanged
     mats = [random_coverage(r, p, int(r.integers(max(40, W // 4), W)),
                             scale=1 + 10 * r.random(),
                             degraded=bool(r.integers(0, 2))
@@ -45,14 +45,10 @@ def test_fuzz_pallas_trim_matches_xla(trial):
         F, mask, cfg, EngineConfig(use_pallas=False, nmf_tol=tol))
     rp = baseline_select_bucket(
         F, mask, cfg, EngineConfig(use_pallas=True, pallas_interpret=True,
-                                   nmf_tol=tol, trim_fast=fast))
+                                   nmf_tol=tol))
     np.testing.assert_array_equal(np.asarray(rx.bailed),
                                   np.asarray(rp.bailed))
-    if fast:
-        # documented numeric deviation: decisions may differ, values finite
-        assert np.isfinite(np.asarray(rp.rho)).all()
-    else:
-        np.testing.assert_array_equal(np.asarray(rx.ran_bs),
-                                      np.asarray(rp.ran_bs))
-        np.testing.assert_allclose(np.asarray(rp.rho), np.asarray(rx.rho),
-                                   rtol=5e-2, atol=5e-3)
+    np.testing.assert_array_equal(np.asarray(rx.ran_bs),
+                                  np.asarray(rp.ran_bs))
+    np.testing.assert_allclose(np.asarray(rp.rho), np.asarray(rx.rho),
+                               rtol=5e-2, atol=5e-3)

@@ -12,7 +12,7 @@ from collections import OrderedDict
 import numpy as np
 import pytest
 
-from degnorm_tpu.config import EngineConfig, NMFConfig
+from degnorm_jax.config import EngineConfig, NMFConfig
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "data",
                        "golden_nmfoa.npz")
@@ -41,7 +41,7 @@ def _cfg(golden):
 
 
 def test_oracle_matches_golden(golden):
-    from degnorm_tpu.oracle.nmfoa import degnorm_fit
+    from degnorm_jax.oracle.nmfoa import degnorm_fit
     cov, X = _dataset(golden)
     res = degnorm_fit(list(cov.values()), X, _cfg(golden))
     np.testing.assert_array_equal(res.ran_baseline_selection,
@@ -55,7 +55,7 @@ def test_oracle_matches_golden(golden):
 def test_engine_matches_golden(golden):
     """Device engine (f64 CPU path) within SVD-iteration tolerance of the
     frozen reference outputs."""
-    from degnorm_tpu.engine import DegNormEngine
+    from degnorm_jax.engine import DegNormEngine
     cov, X = _dataset(golden)
     eng = DegNormEngine(_cfg(golden),
                         EngineConfig(dtype="float64", use_pallas=False))

@@ -14,7 +14,7 @@ os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
 sys.path.insert(0, {repo!r})
 import jax
 jax.config.update("jax_platforms", "cpu")
-from degnorm_tpu.parallel.distributed import initialize_multihost, global_mesh
+from degnorm_jax.parallel.distributed import initialize_multihost, global_mesh
 initialize_multihost()
 assert jax.process_count() == 2, jax.process_count()
 assert jax.device_count() == 4, jax.device_count()
@@ -43,11 +43,11 @@ def test_two_process_distributed(tmp_path):
     script = tmp_path / "worker.py"
     script.write_text(_WORKER.format(repo=repo))
     env = dict(os.environ,
-               DEGNORM_TPU_COORDINATOR="localhost:19731",
-               DEGNORM_TPU_NUM_PROCESSES="2")
+               DEGNORM_JAX_COORDINATOR="localhost:19731",
+               DEGNORM_JAX_NUM_PROCESSES="2")
     procs = []
     for pid in range(2):
-        e = dict(env, DEGNORM_TPU_PROCESS_ID=str(pid))
+        e = dict(env, DEGNORM_JAX_PROCESS_ID=str(pid))
         procs.append(subprocess.Popen(
             [sys.executable, str(script)], env=e,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -69,13 +69,13 @@ sys.path.insert(0, {repo!r})
 import jax
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
-from degnorm_tpu.parallel.distributed import initialize_multihost, global_mesh
+from degnorm_jax.parallel.distributed import initialize_multihost, global_mesh
 initialize_multihost()
 
 import numpy as np
 from collections import OrderedDict
-from degnorm_tpu.config import EngineConfig, NMFConfig
-from degnorm_tpu.engine import DegNormEngine
+from degnorm_jax.config import EngineConfig, NMFConfig
+from degnorm_jax.engine import DegNormEngine
 
 rng = np.random.default_rng(91)
 cov = OrderedDict()
@@ -105,14 +105,14 @@ os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
 sys.path.insert(0, {repo!r})
 import jax
 jax.config.update("jax_platforms", "cpu")
-from degnorm_tpu.cli import main
+from degnorm_jax.cli import main
 rc = main(["--bam-files", *{bams!r}, "-g", {gtf!r}, "-o", {out!r},
            "--nmf-iter", "4", "--iter", "1", "--multihost",
            "--plot-genes", "gene000", "gene001"])
 assert rc == 0
 # post-run collective sanity: the output-dir broadcast primitive
 # round-trips arbitrary unicode from the coordinator
-from degnorm_tpu.parallel.distributed import broadcast_string, is_coordinator
+from degnorm_jax.parallel.distributed import broadcast_string, is_coordinator
 got = broadcast_string("dir/å-π ok" if is_coordinator() else "")
 assert got == "dir/å-π ok", got
 print("CLI OK", flush=True)
@@ -127,7 +127,7 @@ def test_two_process_cli_multihost(tmp_path):
     entry point contract, __main_mpi__.py:62-71)."""
     import numpy as np
     import pandas as pd
-    from degnorm_tpu.io.simulate import make_genes, write_gtf, \
+    from degnorm_jax.io.simulate import make_genes, write_gtf, \
         write_sample_bam
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -148,11 +148,11 @@ def test_two_process_cli_multihost(tmp_path):
     script.write_text(_CLI_WORKER.format(repo=repo, bams=bams, gtf=gtf,
                                          out=str(out_base)))
     env = dict(os.environ,
-               DEGNORM_TPU_COORDINATOR="localhost:19751",
-               DEGNORM_TPU_NUM_PROCESSES="2")
+               DEGNORM_JAX_COORDINATOR="localhost:19751",
+               DEGNORM_JAX_NUM_PROCESSES="2")
     procs = []
     for pid in range(2):
-        e = dict(env, DEGNORM_TPU_PROCESS_ID=str(pid))
+        e = dict(env, DEGNORM_JAX_PROCESS_ID=str(pid))
         procs.append(subprocess.Popen(
             [sys.executable, str(script)], env=e,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -199,7 +199,7 @@ def test_two_process_cli_multihost(tmp_path):
     assert "plotting coverage for 1 gene(s): gene001" in outs[1], outs[1][-2000:]
 
     # DI parity vs a single-process run of the identical data
-    from degnorm_tpu.cli import main
+    from degnorm_jax.cli import main
     solo_base = tmp_path / "solo_out"
     solo_base.mkdir()
     rc = main(["--bam-files", *bams, "-g", gtf, "-o", str(solo_base),
@@ -218,7 +218,7 @@ def test_shard_plot_genes():
     """The plot-gene scatter is deterministic, case-insensitive, disjoint,
     and covering (reference scatter semantics, __main_mpi__.py:461-488 +
     case-insensitive gene lookup, data_access.py:61-63)."""
-    from degnorm_tpu.pipeline.run import _shard_plot_genes
+    from degnorm_jax.pipeline.run import _shard_plot_genes
 
     fitted = ["GENE2", "GENE0", "GENE1", "OTHER"]
     req = ["gene1", "Gene0", "GENE2", "missing", "gene1"]
@@ -238,18 +238,18 @@ def test_two_process_engine(tmp_path):
     float64 run exactly."""
     import numpy as np
     from collections import OrderedDict
-    from degnorm_tpu.config import EngineConfig, NMFConfig
-    from degnorm_tpu.engine import DegNormEngine
+    from degnorm_jax.config import EngineConfig, NMFConfig
+    from degnorm_jax.engine import DegNormEngine
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     script = tmp_path / "engine_worker.py"
     script.write_text(_ENGINE_WORKER.format(repo=repo, out=str(tmp_path)))
     env = dict(os.environ,
-               DEGNORM_TPU_COORDINATOR="localhost:19741",
-               DEGNORM_TPU_NUM_PROCESSES="2")
+               DEGNORM_JAX_COORDINATOR="localhost:19741",
+               DEGNORM_JAX_NUM_PROCESSES="2")
     procs = []
     for pid in range(2):
-        e = dict(env, DEGNORM_TPU_PROCESS_ID=str(pid))
+        e = dict(env, DEGNORM_JAX_PROCESS_ID=str(pid))
         procs.append(subprocess.Popen(
             [sys.executable, str(script)], env=e,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))

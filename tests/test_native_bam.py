@@ -4,9 +4,9 @@ import os
 import numpy as np
 import pytest
 
-from degnorm_tpu.io import bam as bamio
-from degnorm_tpu.io.native.build import load_library
-from degnorm_tpu.io.simulate import make_genes, write_sample_bam
+from degnorm_jax.io import bam as bamio
+from degnorm_jax.io.native.build import load_library
+from degnorm_jax.io.simulate import make_genes, write_sample_bam
 
 
 @pytest.fixture(scope="module")
@@ -41,7 +41,7 @@ def test_native_matches_python(bam_file, tid):
 
 
 def test_native_is_default(bam_file, monkeypatch):
-    monkeypatch.delenv("DEGNORM_TPU_NO_NATIVE", raising=False)
+    monkeypatch.delenv("DEGNORM_JAX_NO_NATIVE", raising=False)
     hdr, cols = bamio.read_bam(bam_file)
     assert len(cols) > 0
 
@@ -49,11 +49,11 @@ def test_native_is_default(bam_file, monkeypatch):
 def test_native_coverage_kernel_matches_numpy(bam_file):
     """The C++ coverage kernel must equal the numpy implementation exactly
     (which is itself byte-equal to the reference)."""
-    from degnorm_tpu.io.coverage import chromosome_coverage_read_counts
-    from degnorm_tpu.io.gtf import gene_outline
-    from degnorm_tpu.io.overlap import overlap_structure
+    from degnorm_jax.io.coverage import chromosome_coverage_read_counts
+    from degnorm_jax.io.gtf import gene_outline
+    from degnorm_jax.io.overlap import overlap_structure
     import pandas as pd
-    from degnorm_tpu.io.simulate import make_genes
+    from degnorm_jax.io.simulate import make_genes
 
     rng = np.random.default_rng(3)
     genes = make_genes(rng, n_genes=6)
@@ -86,7 +86,7 @@ def test_lazy_qnames_container_contract():
     array/mask/slice subsetting, tolist, np.asarray materialization, and
     the numpy>=2 __array__(copy=True) no-aliasing contract."""
     import numpy as np
-    from degnorm_tpu.io.bam import LazyQnames
+    from degnorm_jax.io.bam import LazyQnames
 
     blob = b"read.1\x00r2\x00longername.2\x00x\x00"
     offs = np.array([0, 7, 10, 23, 25], np.int64)
@@ -115,7 +115,7 @@ def test_read_header_growing_prefix(tmp_path):
     mid-payload (zlib.error, not ValueError) and grow until the header
     parses — the code-review-reproduced crash for headers spanning past
     the initial prefix."""
-    from degnorm_tpu.io import bam as bamio
+    from degnorm_jax.io import bam as bamio
     path = str(tmp_path / "hdr.bam")
     names = [f"chr{i}" for i in range(200)]
     bamio.write_bam(path, names, [1000] * len(names),
@@ -135,10 +135,10 @@ def test_native_coverage_kernel_threaded_bit_identical(bam_file, paired,
     coverage kernel must be BIT-IDENTICAL to the serial kernel at any
     thread count — all accumulation is commutative integer adds (relaxed
     atomics), so this is a hard equality, not a tolerance."""
-    from degnorm_tpu.io.coverage import chromosome_coverage_read_counts
-    from degnorm_tpu.io.overlap import overlap_structure
+    from degnorm_jax.io.coverage import chromosome_coverage_read_counts
+    from degnorm_jax.io.overlap import overlap_structure
     import pandas as pd
-    from degnorm_tpu.io.simulate import make_genes, write_sample_bam
+    from degnorm_jax.io.simulate import make_genes, write_sample_bam
 
     rng = np.random.default_rng(11)
     genes = make_genes(rng, n_genes=8, overlap_fraction=0.3)

@@ -2,14 +2,14 @@
 reference implementation (imported read-only) to numerical tolerance.
 
 This is the anchor of the whole parity chain:
-    reference (scipy/ARPACK)  ==  oracle (scipy/ARPACK)  ~=  TPU engine.
+    reference (scipy/ARPACK)  ==  oracle (scipy/ARPACK)  ~=  device engine.
 """
 import numpy as np
 import pytest
 from collections import OrderedDict
 
-from degnorm_tpu.config import NMFConfig
-from degnorm_tpu.oracle import nmfoa as oracle
+from degnorm_jax.config import NMFConfig
+from degnorm_jax.oracle import nmfoa as oracle
 from tests.conftest import random_coverage
 
 

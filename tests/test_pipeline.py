@@ -7,7 +7,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from degnorm_tpu.io.simulate import make_genes, write_gtf, write_sample_bam
+from degnorm_jax.io.simulate import make_genes, write_gtf, write_sample_bam
 
 
 CHROM_LEN = 80_000
@@ -30,7 +30,7 @@ def dataset(tmp_path_factory):
 
 
 def run_cli(dataset, tmp_path, extra=()):
-    from degnorm_tpu.cli import main
+    from degnorm_jax.cli import main
     out_base = str(tmp_path)
     # -o must already exist (reference utils.py:334-336; validated by
     # test_cli_flag_validation) — the helper creates it like a user would
@@ -64,8 +64,8 @@ def test_pipeline_end_to_end(dataset, tmp_path):
 
     # full-pipeline numeric parity: the float64 oracle on the run's own
     # merged coverage matrices must reproduce the saved DI scores.
-    from degnorm_tpu.config import NMFConfig
-    from degnorm_tpu.oracle import nmfoa as oracle
+    from degnorm_jax.config import NMFConfig
+    from degnorm_jax.oracle import nmfoa as oracle
     cov_pkl = pickle.load(open(
         os.path.join(out, "chr1", "coverage_matrices_chr1.pkl"), "rb"))
     counts_df = pd.read_csv(os.path.join(out, "read_counts.csv"))
@@ -99,7 +99,7 @@ def test_pipeline_end_to_end(dataset, tmp_path):
 
 def test_pipeline_warm_start(dataset, tmp_path):
     out1 = run_cli(dataset, tmp_path / "first")
-    from degnorm_tpu.cli import main
+    from degnorm_jax.cli import main
     out_base = str(tmp_path / "second")
     os.makedirs(out_base)
     rc = main(["-w", out1, "-o", out_base, "--nmf-iter", "5", "--iter", "2"])
@@ -129,9 +129,9 @@ def test_pipeline_multichrom(tmp_path):
     """Two-chromosome dataset: per-chromosome outputs, DI matrix covers
     genes from both."""
     import numpy as np
-    from degnorm_tpu.io.simulate import (make_genes, write_gtf,
+    from degnorm_jax.io.simulate import (make_genes, write_gtf,
                                          write_multichrom_bam)
-    from degnorm_tpu.cli import main
+    from degnorm_jax.cli import main
 
     rng = np.random.default_rng(77)
     g1 = make_genes(rng, chrom="chr1", n_genes=4, name_prefix="a.")
@@ -164,7 +164,7 @@ def test_pipeline_multichrom(tmp_path):
 def test_pipeline_plot_genes_and_bam_dir(dataset, tmp_path):
     """--plot-genes (incl. .txt expansion) and --bam-dir scanning."""
     import shutil
-    from degnorm_tpu.cli import main
+    from degnorm_jax.cli import main
     bam_dir = tmp_path / "bams"
     bam_dir.mkdir()
     for b in dataset["bams"]:
@@ -187,7 +187,7 @@ def test_cli_flag_validation(dataset, tmp_path):
     """Reference argparser rejections (utils.py:343-344, 398-403,
     434-436): non-positive numeric flags, --bam-dir combined with
     --bam-files, non-.bam/.cram paths, missing --bam-dir."""
-    from degnorm_tpu.cli import parse_config
+    from degnorm_jax.cli import parse_config
     base = ["--bam-files", *dataset["bams"], "-g", dataset["gtf"]]
     for bad in (["-d", "0"], ["--nmf-iter", "0"], ["--iter", "-1"],
                 ["-d", "-3"]):
@@ -230,9 +230,9 @@ def test_cli_flag_validation(dataset, tmp_path):
 
 def test_multihost_init_noop(monkeypatch):
     """initialize_multihost is a no-op without coordinator config."""
-    from degnorm_tpu.parallel.distributed import initialize_multihost
-    monkeypatch.delenv("DEGNORM_TPU_COORDINATOR", raising=False)
-    monkeypatch.delenv("DEGNORM_TPU_NUM_PROCESSES", raising=False)
+    from degnorm_jax.parallel.distributed import initialize_multihost
+    monkeypatch.delenv("DEGNORM_JAX_COORDINATOR", raising=False)
+    monkeypatch.delenv("DEGNORM_JAX_NUM_PROCESSES", raising=False)
     initialize_multihost()   # must not raise or initialize anything
 
 
@@ -261,9 +261,9 @@ def test_resume_is_pure_artifact_load(dataset, tmp_path):
     resume path (reference reads.py:368-386) must not decode the .bam at
     all — coverage_read_counts becomes a pure artifact load.  This is also
     the multihost peer-shard handoff path (run.py _cold_start)."""
-    from degnorm_tpu.io.gtf import process_annotation
-    from degnorm_tpu.io.overlap import overlap_structure
-    from degnorm_tpu.pipeline.sample import BamSampleProcessor
+    from degnorm_jax.io.gtf import process_annotation
+    from degnorm_jax.io.overlap import overlap_structure
+    from degnorm_jax.pipeline.sample import BamSampleProcessor
 
     exon_df = process_annotation(dataset["gtf"])
     gene_df = exon_df[["chr", "gene", "gene_start", "gene_end"]

@@ -8,8 +8,8 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from degnorm_tpu.io.gtf import load_exons, process_annotation
-from degnorm_tpu.io.overlap import overlap_structure
+from degnorm_jax.io.gtf import load_exons, process_annotation
+from degnorm_jax.io.overlap import overlap_structure
 from tests.test_coverage_parity import _stub_modules
 
 REF_GTF = "/root/reference/degnorm/tests/data/chr1_small.gtf"
@@ -53,11 +53,11 @@ def test_pipeline_on_reference_annotation(tmp_path):
     """End-to-end run with the real annotation + synthetic reads over its
     exon structure, full-pipeline DI parity vs the float64 oracle."""
     import pickle
-    from degnorm_tpu.cli import main
-    from degnorm_tpu.config import NMFConfig
-    from degnorm_tpu.io.simulate import SimGene, simulate_sample
-    from degnorm_tpu.io import bam as bamio
-    from degnorm_tpu.oracle import nmfoa as oracle
+    from degnorm_jax.cli import main
+    from degnorm_jax.config import NMFConfig
+    from degnorm_jax.io.simulate import SimGene, simulate_sample
+    from degnorm_jax.io import bam as bamio
+    from degnorm_jax.oracle import nmfoa as oracle
 
     exon_df = load_exons(REF_GTF)
     genes = [SimGene(g, "chr1",

@@ -8,10 +8,10 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from degnorm_tpu.report.data_access import (CoverageLoader, get_coverage_data,
+from degnorm_jax.report.data_access import (CoverageLoader, get_coverage_data,
                                             get_coverage_plots)
-from degnorm_tpu.report.report import render_report
-from degnorm_tpu.report.visualizations import (get_di_boxplots,
+from degnorm_jax.report.report import render_report
+from degnorm_jax.report.visualizations import (get_di_boxplots,
                                                get_di_correlation,
                                                get_di_heatmap,
                                                load_di_scores, union_exons)
@@ -114,4 +114,4 @@ def test_render_report(fake_run_dir):
     assert os.path.isfile(path)
     html = open(os.path.join(fake_run_dir, "report",
                              "degnorm_summary.html")).read()
-    assert "DegNorm-TPU pipeline summary" in html
+    assert "DegNorm-JAX pipeline summary" in html

@@ -1,7 +1,7 @@
 """Sequence-parallel (column-sharded) engine path on the 8-device mesh."""
 import numpy as np
 
-from degnorm_tpu.parallel.sharded import make_mesh
+from degnorm_jax.parallel.sharded import make_mesh
 from tests.conftest import random_coverage
 
 
@@ -11,8 +11,8 @@ def test_engine_routes_long_genes_to_column_sharding():
     parallel); results must match the single-device engine (f64: exact up
     to reduction-order noise)."""
     from collections import OrderedDict
-    from degnorm_tpu.config import EngineConfig, NMFConfig
-    from degnorm_tpu.engine import DegNormEngine
+    from degnorm_jax.config import EngineConfig, NMFConfig
+    from degnorm_jax.engine import DegNormEngine
 
     rng = np.random.default_rng(5)
     cov = OrderedDict()

@@ -4,9 +4,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from degnorm_tpu.config import EngineConfig, NMFConfig
-from degnorm_tpu.core.baseline import baseline_select_bucket
-from degnorm_tpu.parallel.sharded import (
+from degnorm_jax.config import EngineConfig, NMFConfig
+from degnorm_jax.core.baseline import baseline_select_bucket
+from degnorm_jax.parallel.sharded import (
     make_mesh, shard_bucket, gene_sharding, sharded_iteration_step)
 from tests.conftest import random_coverage
 from tests.test_core_parity import make_bucket
@@ -42,7 +42,7 @@ def test_sharded_bucket_matches_single_device():
 def test_sharded_iteration_step_runs_and_matches_host_update():
     """Fused sharded iteration (bucket kernel + global update with implicit
     psum) equals the host-side reference update path."""
-    from degnorm_tpu.core import degnorm as outer
+    from degnorm_jax.core import degnorm as outer
 
     rng = np.random.default_rng(32)
     n, p = 16, 4
@@ -83,10 +83,12 @@ def test_sharded_iteration_step_runs_and_matches_host_update():
 
 
 def test_shard_map_pallas_matches_gspmd_xla():
-    """Kernels on a multi-device mesh run under shard_map with LOCAL shard
-    shapes (GSPMD cannot partition an opaque custom call) — the
-    pallas-interpret shard_map path must match the GSPMD XLA lowering.
-    Wide W forces the streamed kernel (ops/pallas_stream.py) per shard."""
+    """The GPU kernel on a multi-device mesh runs under shard_map with
+    LOCAL shard shapes (GSPMD cannot partition an opaque custom call) —
+    the interpreted-kernel shard_map path must match the GSPMD XLA
+    lowering.  W=2048 at p=4 is inside the kernel's gate."""
+    from degnorm_jax.ops.nmf_gpu import kernel_supported
+    assert kernel_supported((2, 4, 2048), jnp.float32)
     from tests.conftest import random_coverage
     from tests.test_core_parity import make_bucket
 

@@ -13,9 +13,7 @@ device mesh and assert, on the optimized HLO:
     (G, p, W) coverage class — every collective operand/result stays
     within the (n, p) outer-state class.
 
-This is the strongest single-chip-era scaling evidence this environment
-permits (one real TPU chip; BASELINE.md's >= 85%-at-2-hosts gate needs
-hardware): per-iteration cross-device bytes are provably O(n*p), so
+Per-iteration cross-device bytes are thus provably O(n*p), so
 gene-data-parallel scaling has no coverage-sized communication term.
 """
 import re
@@ -26,8 +24,8 @@ import numpy as np
 import pytest
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from degnorm_tpu.config import EngineConfig, NMFConfig
-from degnorm_tpu.parallel.sharded import (gene_sharding, make_mesh,
+from degnorm_jax.config import EngineConfig, NMFConfig
+from degnorm_jax.parallel.sharded import (gene_sharding, make_mesh,
                                           shard_bucket,
                                           sharded_iteration_step)
 
@@ -105,8 +103,8 @@ def test_sharded_iteration_step_traffic_gspmd():
 
 
 def test_sharded_iteration_step_traffic_shard_map():
-    """shard_map + Pallas(interpret) production path: same contract (the
-    kernels are per-gene; only the outer update communicates)."""
+    """shard_map + the GPU kernel (interpreted here): same contract (the
+    kernel is per-gene; only the outer update communicates)."""
     mesh = make_mesh()
     F, mask = _bucket()
     F_s, m_s = shard_bucket(F, mask, mesh)
@@ -128,8 +126,8 @@ def test_engine_device_update_traffic(df):
     (_device_iteration_update / _df) on gene-sharded bucket outputs:
     every collective stays in the (n, p) outer-state class — including
     the double-float path's compensated tree reductions."""
-    from degnorm_tpu.core import dfloat as dfm
-    from degnorm_tpu.engine import (_device_iteration_update,
+    from degnorm_jax.core import dfloat as dfm
+    from degnorm_jax.engine import (_device_iteration_update,
                                     _device_iteration_update_df)
     mesh = make_mesh()
     n = G
@@ -173,8 +171,8 @@ def test_seqpar_column_sharded_step_traffic():
     Gram (Gs, p, p) — and must never replicate the sharded (Gs, p, Ws)
     coverage buffer (no full-width tensor may appear ANYWHERE in the
     optimized module, let alone ride a collective)."""
-    from degnorm_tpu.engine import _bucket_step
-    from degnorm_tpu.parallel.seqpar import shard_columns
+    from degnorm_jax.engine import _bucket_step
+    from degnorm_jax.parallel.seqpar import shard_columns
 
     Gs, Ws = 8, 2048
     mesh = make_mesh()

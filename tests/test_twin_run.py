@@ -4,7 +4,7 @@ Drives the reference's complete ``__main__.main()`` (reference
 ``degnorm/__main__.py:16-319``) — its real CLI entry, its real ETL, merge,
 GeneNMFOA and save paths, with only pysam/HTSeq replaced by functional
 stubs backed by our own BAM decoder (tests/refstub.py) — on synthetic
-BAM+GTF fixtures, then runs ``degnorm-tpu`` on the SAME files and diffs
+BAM+GTF fixtures, then runs ``degnorm-jax`` on the SAME files and diffs
 EVERY output artifact:
 
     read_counts.csv, gene_exon_metadata.csv  — exact
@@ -47,9 +47,9 @@ TOL_EST = dict(rtol=5e-2, atol=5e-2)   # per-position envelopes: rank-1
 # --------------------------------------------------------------------------
 @pytest.fixture(scope="module")
 def sim_inputs(tmp_path_factory):
-    from degnorm_tpu.io.simulate import make_genes, write_gtf, \
+    from degnorm_jax.io.simulate import make_genes, write_gtf, \
         write_sample_bam
-    from degnorm_tpu.io.bai import index_bam
+    from degnorm_jax.io.bai import index_bam
 
     root = tmp_path_factory.mktemp("twin")
     rng = np.random.default_rng(97)
@@ -89,7 +89,7 @@ def run_reference(parent, sim, extra):
 
 
 def run_ours(parent, sim, extra):
-    from degnorm_tpu.cli import main
+    from degnorm_jax.cli import main
     os.makedirs(parent, exist_ok=True)
     rc = main(["--bam-files", *sim["bams"], "-g", sim["gtf"],
                "-o", str(parent), "-p", "1", *extra])
@@ -226,9 +226,9 @@ def sim_inputs_paired(tmp_path_factory):
     """Paired-end twin fixture: exercises the reference's pairedness
     sniff (reads.py:184-203), RNEXT filter, qname_unpaired sort and
     mate-overlap disjointification against our pair-hash path."""
-    from degnorm_tpu.io.simulate import make_genes, write_gtf, \
+    from degnorm_jax.io.simulate import make_genes, write_gtf, \
         write_sample_bam
-    from degnorm_tpu.io.bai import index_bam
+    from degnorm_jax.io.bai import index_bam
 
     root = tmp_path_factory.mktemp("twin_pe")
     rng = np.random.default_rng(131)

@@ -4,11 +4,11 @@ contract (tests/test_loaders.py), bucket packing invariants."""
 import numpy as np
 import pytest
 
-from degnorm_tpu.data.buckets import pack_buckets
-from degnorm_tpu.io import bam as bamio
-from degnorm_tpu.io.coverage import read_match_segments
-from degnorm_tpu.io.gtf import load_exons
-from degnorm_tpu.io.simulate import SimGene, write_gtf
+from degnorm_jax.data.buckets import pack_buckets
+from degnorm_jax.io import bam as bamio
+from degnorm_jax.io.coverage import read_match_segments
+from degnorm_jax.io.gtf import load_exons
+from degnorm_jax.io.simulate import SimGene, write_gtf
 
 
 def cols_for(cigar, pos):
@@ -119,8 +119,8 @@ def test_compat_rejects_no_match_cigar():
     mode (reads.py:62-64); strict mode treats '='/'X' as match."""
     import numpy as np
     import pytest
-    from degnorm_tpu.io.bam import ReadColumns
-    from degnorm_tpu.io.coverage import (check_compat_match_regions,
+    from degnorm_jax.io.bam import ReadColumns
+    from degnorm_jax.io.coverage import (check_compat_match_regions,
                                          read_match_segments)
     cols = ReadColumns(
         qnames=np.array(["r0", "r1"], dtype=object),

@@ -1,7 +1,7 @@
 """BASELINE.json config-5 stretch exercise: 50k transcripts x 32 samples
 with warm-start restarts (engine-level checkpoint resume mid-loop).
 
-Runs on the real TPU:
+Runs on one GPU:
   1. fresh engine, 2 of 5 DegNorm iterations, checkpointing each one;
   2. NEW engine process-state resumes from the checkpoint and finishes;
   3. asserts the resumed result equals an uninterrupted 5-iteration run.
@@ -21,16 +21,9 @@ NMF_ITER, TOTAL_ITERS = 50, 5
 
 
 def main():
-    import jax
-    cache = os.environ.get("JAX_CACHE_DIR", "/tmp/degnorm_jax_cache")
-    try:
-        jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:
-        pass
     from bench import synth_dataset      # repo root on sys.path (line 12)
-    from degnorm_tpu.config import EngineConfig, NMFConfig
-    from degnorm_tpu.engine import DegNormEngine
+    from degnorm_jax.config import EngineConfig, NMFConfig
+    from degnorm_jax.engine import DegNormEngine
 
     t0 = time.perf_counter()
     cov, X = synth_dataset(N, P)

@@ -13,7 +13,7 @@ Run from the repo root on an idle host:
     python tools/etl_scaling.py [n_samples] [reads_per_sample]
 
 Prints per-phase wall times and the 2-process scaling efficiency
-(solo_decode / (2 * max_proc_decode)).  CPU-only; no TPU session needed.
+(solo_decode / (2 * max_proc_decode)).  CPU-only; no accelerator needed.
 """
 import json
 import os
@@ -41,10 +41,10 @@ os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
 sys.path.insert(0, {repo!r})
 import jax
 jax.config.update("jax_platforms", "cpu")
-from degnorm_tpu.parallel.distributed import initialize_multihost, global_mesh
+from degnorm_jax.parallel.distributed import initialize_multihost, global_mesh
 initialize_multihost()
-from degnorm_tpu.config import PipelineConfig
-from degnorm_tpu.pipeline.run import _cold_start
+from degnorm_jax.config import PipelineConfig
+from degnorm_jax.pipeline.run import _cold_start
 
 cfg = PipelineConfig(bam_files=tuple({bams!r}), bai_files=(),
                      genome_annotation={gtf!r}, output_dir={out!r},
@@ -60,7 +60,7 @@ print(json.dumps({{"proc": jax.process_index(),
 
 def main():
     import numpy as np
-    from degnorm_tpu.io.simulate import make_genes, write_gtf, write_sample_bam
+    from degnorm_jax.io.simulate import make_genes, write_gtf, write_sample_bam
 
     # ETL_SCALING_DIR: reuse an existing generated dataset (the 20M-read
     # config takes ~28 min to synthesize)
@@ -101,8 +101,8 @@ def main():
     node1 = ",".join(str(c) for c in range(half, 2 * half))
 
     # --- single process on ONE emulated node ---
-    from degnorm_tpu.config import PipelineConfig
-    from degnorm_tpu.pipeline.run import _cold_start
+    from degnorm_jax.config import PipelineConfig
+    from degnorm_jax.pipeline.run import _cold_start
     solo_out = os.path.join(d, "solo")
     os.makedirs(solo_out)
     os.sched_setaffinity(0, {int(c) for c in node0.split(",")})
@@ -120,11 +120,11 @@ def main():
     script = os.path.join(d, "worker.py")
     with open(script, "w") as f:
         f.write(_WORKER.format(repo=repo, bams=bams, gtf=gtf, out=mh_out))
-    env = dict(os.environ, DEGNORM_TPU_COORDINATOR="localhost:19881",
-               DEGNORM_TPU_NUM_PROCESSES="2")
+    env = dict(os.environ, DEGNORM_JAX_COORDINATOR="localhost:19881",
+               DEGNORM_JAX_NUM_PROCESSES="2")
     procs = []
     for pid, aff in ((0, node0), (1, node1)):
-        e = dict(env, DEGNORM_TPU_PROCESS_ID=str(pid),
+        e = dict(env, DEGNORM_JAX_PROCESS_ID=str(pid),
                  DEGNORM_AFFINITY=aff)
         procs.append(subprocess.Popen([sys.executable, script], env=e,
                                       stdout=subprocess.PIPE,

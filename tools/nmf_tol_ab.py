@@ -15,21 +15,13 @@ import numpy as np
 N = int(sys.argv[1]) if len(sys.argv) > 1 else 4096
 PROFILE = sys.argv[2] if len(sys.argv) > 2 else "dense"
 
-import jax
-jax.config.update("jax_compilation_cache_dir",
-                  os.environ.get("JAX_CACHE_DIR", "/tmp/degnorm_jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-
 import bench
-from degnorm_tpu.config import EngineConfig, NMFConfig
-from degnorm_tpu.engine import DegNormEngine
+from degnorm_jax.config import EngineConfig, NMFConfig
+from degnorm_jax.engine import DegNormEngine
 
 cov, X = bench.synth_dataset(N, 8, profile=PROFILE)
 nmf_cfg = NMFConfig(nmf_iter=50, degnorm_iter=3)
 base_eng = EngineConfig(bucket_widths=(1024, 4096))
-
-import jax.numpy as jnp
-np.asarray(jnp.zeros(8) + 1)   # absorb device-session acquisition
 
 results = {}
 for name, tol in [("tol_0", 0.0), ("tol_1e-4", 1e-4), ("tol_1e-3", 1e-3),

@@ -1,6 +1,6 @@
 """Whole-pipeline benchmark: the reference's unit of account is ONE linear
 run (BAM -> coverage -> NMF-OA -> save -> plots -> report, reference
-__main__.py:16-319); this tool times `degnorm-tpu` the same way, cold,
+__main__.py:16-319); this tool times `degnorm-jax` the same way, cold,
 at real scale, and prints the per-phase wall-clock split.
 
 Dataset (cached under --data-dir): 20,480 genes with multi-exon structure
@@ -10,7 +10,7 @@ and overlap groups across 8 chromosomes; 8 samples x ~2M aligned reads
     python tools/pipeline_bench.py              # generate + run
     python tools/pipeline_bench.py --skip-run   # just generate/cache
 
-The CLI is invoked as a real subprocess (`python -m degnorm_tpu ...`) so
+The CLI is invoked as a real subprocess (`python -m degnorm_jax ...`) so
 the number includes interpreter + device-session startup the way a user
 pays it; the per-phase split is parsed from the pipeline's own timings
 log line (pipeline/run.py).
@@ -21,6 +21,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -34,7 +35,7 @@ READS_PER_GENE = int(os.environ.get("PIPE_READS_PER_GENE", 100))
 
 
 def build_dataset(data_dir: str) -> dict:
-    from degnorm_tpu.io.simulate import (make_genes, write_gtf,
+    from degnorm_jax.io.simulate import (make_genes, write_gtf,
                                          write_multichrom_bam)
     os.makedirs(data_dir, exist_ok=True)
     manifest = os.path.join(data_dir, "manifest.json")
@@ -82,8 +83,8 @@ def build_dataset(data_dir: str) -> dict:
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--data-dir",
-                    default=os.environ.get("PIPE_DATA_DIR",
-                                           "/tmp/dn_pipeline_bench"))
+                    default=os.environ.get("PIPE_DATA_DIR", os.path.join(
+                        tempfile.gettempdir(), "dn_pipeline_bench")))
     ap.add_argument("--out-dir", default=None)
     ap.add_argument("--skip-run", action="store_true")
     ap.add_argument("--nmf-iter", type=int, default=50)
@@ -97,7 +98,7 @@ def main():
         return
     out = args.out_dir or os.path.join(args.data_dir, "run")
     os.makedirs(out, exist_ok=True)
-    cmd = [sys.executable, "-m", "degnorm_tpu",
+    cmd = [sys.executable, "-m", "degnorm_jax",
            "--bam-files",
            *[os.path.join(args.data_dir, b) for b in m["bams"]],
            "-g", os.path.join(args.data_dir, m["gtf"]),

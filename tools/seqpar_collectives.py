@@ -30,10 +30,10 @@ jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402
 
-from degnorm_tpu.config import EngineConfig, NMFConfig  # noqa: E402
-from degnorm_tpu.engine import _bucket_step  # noqa: E402
-from degnorm_tpu.parallel.seqpar import shard_columns  # noqa: E402
-from degnorm_tpu.parallel.sharded import make_mesh  # noqa: E402
+from degnorm_jax.config import EngineConfig, NMFConfig  # noqa: E402
+from degnorm_jax.engine import _bucket_step  # noqa: E402
+from degnorm_jax.parallel.seqpar import shard_columns  # noqa: E402
+from degnorm_jax.parallel.sharded import make_mesh  # noqa: E402
 
 NMF_ITER = 10
 G, p, W = 8, 4, 2048

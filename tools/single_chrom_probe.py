@@ -9,6 +9,7 @@ import argparse
 import os
 import shutil
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -23,11 +24,12 @@ def main():
     ap.add_argument("--genes", type=int, default=2000)
     ap.add_argument("--jobs", type=int,
                     default=max(1, (os.cpu_count() or 2)))
-    ap.add_argument("--data-dir", default="/tmp/dn_single_chrom_probe")
+    ap.add_argument("--data-dir", default=os.path.join(
+        tempfile.gettempdir(), "dn_single_chrom_probe"))
     ap.add_argument("--paired", action="store_true")
     args = ap.parse_args()
 
-    from degnorm_tpu.io.simulate import make_genes, write_gtf, \
+    from degnorm_jax.io.simulate import make_genes, write_gtf, \
         write_sample_bam
     os.makedirs(args.data_dir, exist_ok=True)
     tag = f"one_{args.reads}" + ("_pe" if args.paired else "")
@@ -46,9 +48,9 @@ def main():
         print(f"[probe] dataset built in {time.time()-t0:.0f}s "
               f"({os.path.getsize(bam)/1e6:.0f} MB)", flush=True)
 
-    from degnorm_tpu.io.gtf import process_annotation
-    from degnorm_tpu.io.overlap import overlap_structure
-    from degnorm_tpu.pipeline.sample import BamSampleProcessor
+    from degnorm_jax.io.gtf import process_annotation
+    from degnorm_jax.io.overlap import overlap_structure
+    from degnorm_jax.pipeline.sample import BamSampleProcessor
 
     exon_df = process_annotation(gtf)
     gene_df = exon_df[["chr", "gene", "gene_start", "gene_end"]

@@ -2,10 +2,12 @@
 touches core/, ops/, parallel/ or engine.py.
 
 Exercises every kernel call signature end-to-end:
-  1. one engine fit on the fused-Pallas path (interpret mode — the exact
-     plumbing the production TPU path uses, minus Mosaic codegen);
+  1. one engine fit with the GPU NMF kernel (ops/nmf_gpu.py) in the Pallas
+     interpreter — the plumbing the GPU path uses, minus Triton codegen;
   2. one engine fit on the plain XLA path, cross-checked against (1);
-  3. dryrun_multichip(2) — the gene-sharded shard_map step, Pallas included.
+  3. the nmf_tol opt-in with the kernel switched on (it takes XLA);
+  4. the device-resident outer loop, interpreted kernel included;
+  5. dryrun_multichip(2) — the gene-sharded shard_map step, kernel included.
 
 This is the automated gate the reference gets from Travis + degnorm_test
 (reference .travis.yml:8-11, tests/__test__.py:33-35).  Round 2 shipped a
@@ -35,9 +37,9 @@ import numpy as np  # noqa: E402
 
 def synthetic_dataset(n=24, p=4, seed=7):
     # Deliberately NOT bench.synth_dataset: smoke must stay ~1 min on CPU,
-    # so gene lengths are capped at 600 (interpret-mode Pallas cost scales
-    # with the padded bucket width; bench's 200-4000 bp power law would
-    # quadruple the gate's runtime for no extra signature coverage).
+    # so gene lengths are capped at 600 (the interpreted kernel's cost
+    # scales with the padded bucket width; bench's 200-4000 bp power law
+    # would quadruple the gate's runtime for no extra signature coverage).
     rng = np.random.default_rng(seed)
     cov, counts = {}, []
     for i in range(n):
@@ -53,19 +55,19 @@ def synthetic_dataset(n=24, p=4, seed=7):
 
 
 def main():
-    from degnorm_tpu.config import EngineConfig, NMFConfig
-    from degnorm_tpu.engine import DegNormEngine
+    from degnorm_jax.config import EngineConfig, NMFConfig
+    from degnorm_jax.engine import DegNormEngine
 
     t0 = time.time()
     cov, counts = synthetic_dataset()
     nmf_cfg = NMFConfig(nmf_iter=10, degnorm_iter=2)
 
-    # 1. fused-Pallas plumbing (interpret mode = same call signatures as TPU)
+    # 1. GPU-kernel plumbing (interpreted: same call signatures as the GPU)
     eng_pl = DegNormEngine(nmf_cfg, EngineConfig(
         use_pallas=True, pallas_interpret=True))
     res_pl = eng_pl.run(cov, counts)
     assert np.isfinite(res_pl.rho).all() and res_pl.ran_baseline_selection.any()
-    print(f"[smoke] pallas-interpret fit ok  ({time.time() - t0:.1f}s)")
+    print(f"[smoke] kernel-interpret fit ok  ({time.time() - t0:.1f}s)")
 
     # 2. XLA path + HOST f64 outer loop (device_loop=False: the None
     #    default resolves to the device loop since round 4, and step 4's
@@ -95,7 +97,7 @@ def main():
     np.testing.assert_allclose(res_d.rho, res_x.rho, rtol=5e-3, atol=5e-4)
     print(f"[smoke] device-loop fit ok       ({time.time() - t0:.1f}s)")
 
-    # 5. multichip dryrun (gene-sharded shard_map step, Pallas included)
+    # 5. multichip dryrun (gene-sharded shard_map step, kernel included)
     import __graft_entry__ as g
     g.dryrun_multichip(2)
     print(f"[smoke] dryrun_multichip(2) ok   ({time.time() - t0:.1f}s)")
